@@ -1,5 +1,5 @@
-"""lightcurve_fitting_tpu: a TPU-native (JAX/XLA) framework for fitting
-analytical supernova light-curve models, with the full capabilities of
+"""lightcurve_fitting_tpu: a JAX/XLA framework for fitting analytical
+supernova light-curve models, with the full capabilities of
 griffin-h/lightcurve_fitting redesigned for accelerator execution.
 
 Layout (mirrors the reference's layer map, SURVEY.md §1):
@@ -26,14 +26,6 @@ if not _os.environ.get("LCF_NO_X64"):
     # float32 regardless (core/config.py). Set LCF_NO_X64=1 to opt out.
     import jax as _jax
     _jax.config.update("jax_enable_x64", True)
-
-if _os.environ.get("LCF_COMPILATION_CACHE"):
-    # persist compiled XLA executables across processes (first TPU compiles
-    # take minutes); env-var form so batch jobs / notebook kernels /
-    # subprocesses opt in without code changes — see
-    # core.config.enable_compilation_cache for the explicit API
-    from .core.config import enable_compilation_cache as _ecc
-    _ecc()
 
 from . import filters  # noqa: F401
 from . import models  # noqa: F401

@@ -44,8 +44,7 @@ c3 = (4.0 * math.pi * SIGMA_SB_ERG_RSUN_KK) ** -0.5 / 1000.0
 # c4: flux = c4 * lum / d_Mpc^2  (reference models.py:12)
 c4 = 1.0 / (4.0 * math.pi * MPC ** 2)
 
-# TPU range safety: this TPU backend emulates float64 with float32 exponent
-# range (verified empirically: 1e42 -> inf, log(1e-64) -> -inf under jit), so
+# float32 range safety: the hot path may run in float32 (core.config), so
 # device-side intermediates must stay within ~[1e-38, 3e38]. Model kernels
 # therefore carry luminosity in units of 1e42 erg/s and split tiny constants:
 c3_42 = c3 * 1e21          # R_bb = c3_42 * sqrt(L / 1e42 erg/s) * T^-2

@@ -27,14 +27,9 @@ Device code never touches these objects: fitting extracts plain arrays
 """
 
 import itertools
-from functools import partial
+from functools import cache, partial
 
 import numpy as np
-import matplotlib.pyplot as plt
-from matplotlib.path import Path
-from matplotlib.markers import MarkerStyle
-from matplotlib.patches import Patch
-from matplotlib.colors import is_color_like
 
 from .filters import filtdict
 from .utils.table import Table, MaskedColumn, vstack
@@ -49,23 +44,29 @@ __all__ = ["LC", "Arrow", "flux2mag", "mag2flux", "binflux", "aux_axes",
            "custom_legend", "filter_legend", "filtsetup", "column_names"]
 
 
-class Arrow(Path):
-    """A downward arrow glyph used to mark nondetections (limiting
-    magnitudes); ``hx``/``hy`` set the head half-width and head height
-    (behavioral spec: reference lightcurve.py:18-31)."""
+def Arrow(hx, hy):
+    """A downward arrow glyph (a ``matplotlib.path.Path``) used to mark
+    nondetections (limiting magnitudes); ``hx``/``hy`` set the head
+    half-width and head height (behavioral spec: reference
+    lightcurve.py:18-31)."""
+    from matplotlib.path import Path
+    stem = [(0.0, 0.0), (0.0, -1.0)]
+    head = [(-hx, hy - 1.0), (0.0, -1.0), (hx, hy - 1.0), (0.0, -1.0)]
+    verts = stem + head + [(0.0, 0.0)]
+    codes = [Path.MOVETO] + [Path.LINETO] * (len(verts) - 2) + [Path.CLOSEPOLY]
+    return Path(verts, codes)
 
-    def __init__(self, hx, hy):
-        stem = [(0.0, 0.0), (0.0, -1.0)]
-        head = [(-hx, hy - 1.0), (0.0, -1.0), (hx, hy - 1.0), (0.0, -1.0)]
-        verts = stem + head + [(0.0, 0.0)]
-        codes = [Path.MOVETO] + [Path.LINETO] * (len(verts) - 2) + [Path.CLOSEPOLY]
-        Path.__init__(self, verts, codes)
 
-
-arrow = Arrow(0.2, 0.3)
-othermarkers = ("o", *MarkerStyle.filled_markers[2:])
-itermarkers = itertools.cycle(othermarkers)
-itercolors = itertools.cycle(plt.rcParams["axes.prop_cycle"].by_key()["color"])
+@cache
+def _style_cycles():
+    """(other markers, marker cycle, color cycle) shared by every plot in the
+    process; built on the first plot so that importing this module (and
+    fitting without plots) never imports matplotlib."""
+    import matplotlib.pyplot as plt
+    from matplotlib.markers import MarkerStyle
+    othermarkers = ("o", *MarkerStyle.filled_markers[2:])
+    return (othermarkers, itertools.cycle(othermarkers),
+            itertools.cycle(plt.rcParams["axes.prop_cycle"].by_key()["color"]))
 
 # recognized column aliases; first entry of each list is the canonical name
 # (alias sets per reference lightcurve.py:40-59)
@@ -415,6 +416,7 @@ class LC(Table):
         colors/offsets, twin MJD/apparent-mag axes, and 'above' legends
         (behavioral spec: reference lightcurve.py:419-668). Style choices per
         group are delegated to :class:`_StyleBook`."""
+        import matplotlib.pyplot as plt
         xcol, ycol = self._resolve_plot_columns(xcol, ycol)
         if marker is None:
             marker = next((c for c in ("source", "telescope") if c in self.colnames), "o")
@@ -468,7 +470,7 @@ class LC(Table):
                         print(f"must set .meta['{peak_key}'] to use normalize")
             nondet = np.asarray(g["nondet"], bool) if "nondet" in g.keys() else None
             if "mag" in ycol and nondet is not None and marker:
-                plt.plot(x[nondet], y[nondet], marker=arrow, linestyle="none",
+                plt.plot(x[nondet], y[nondet], marker=Arrow(0.2, 0.3), linestyle="none",
                          ms=ms / 6.0 * 25.0, mec=mec, **extra_kwargs)
             if hasattr(k, "colnames") and "filter" in k.colnames:
                 k["filter"] = _filter_label(filt, offset_factor)
@@ -520,6 +522,7 @@ class LC(Table):
     def _decorate_plot_axes(self, xcol, ycol, phase_hours):
         """Axis labels from the column registry; magnitude axes increase
         downward."""
+        import matplotlib.pyplot as plt
         ymin, ymax = plt.ylim()
         if "mag" in ycol and ymax > ymin:
             plt.ylim(ymax, ymin)
@@ -546,6 +549,7 @@ class LC(Table):
         keys = sorted(set(np.asarray(self[marker]).tolist()),
                       key=lambda k: str(k).lower())
         labels = [str(k) for k in keys]
+        import matplotlib.pyplot as plt
         lines = []
         for key in keys:
             mec, mfc = ((self.colors.get(key, "k"),) * 2 if marker == color
@@ -629,6 +633,7 @@ class _StyleBook:
 
     def resolve(self, group):
         """Return (color, edgecolor, facecolor, marker) for one group."""
+        from matplotlib.colors import is_color_like
         filt = group["filter"][0]
         spec = self.color_spec
         if spec == "filter":
@@ -643,7 +648,7 @@ class _StyleBook:
             col = spec
             mec = self._edge_for(col)
         else:
-            col = mec = next(itercolors)
+            col = mec = next(_style_cycles()[2])
         if self.color_is_column:
             self.lc.colors[group[spec][0]] = col
 
@@ -653,6 +658,8 @@ class _StyleBook:
         return col, mec, mfc, mark
 
     def _marker_for(self, group):
+        from matplotlib.markers import MarkerStyle
+        othermarkers, itermarkers, _ = _style_cycles()
         spec = self.marker_spec
         if spec == "name" and "marker" in self.lc.meta:
             return self.lc.meta["marker"]
@@ -672,6 +679,7 @@ class _StyleBook:
 def aux_axes(xfunc=None, yfunc=None, ax0=None, xfunc_args=None, yfunc_args=None):
     """Twin axes whose limits are transformations of the base axes
     (behavioral spec: reference lightcurve.py:691-735)."""
+    import matplotlib.pyplot as plt
     ax0 = ax0 or plt.gca()
     left, right_lim, bottom, top_lim = ax0.axis()
     top = ax0
@@ -699,6 +707,7 @@ _ABOVE_LOCS = {"above": ("lower center", 0.5),
 def custom_legend(ax, handles, labels, top_axis=True, **kwargs):
     """Legend supporting loc='above'/'above left'/'above right'
     (behavioral spec: reference lightcurve.py:738-783)."""
+    import matplotlib.pyplot as plt
     loc = kwargs.pop("loc", None)
     bbox_to_anchor = kwargs.pop("bbox_to_anchor", None)
     if loc is None or loc.lower() == "none":
@@ -721,6 +730,7 @@ def filter_legend(filts, offset_factor=1.0):
     """Dummy artists + labels for the filter legend; sets arrange into a
     system-by-offset grid first (behavioral spec: reference
     lightcurve.py:786-828)."""
+    from matplotlib.patches import Patch
     if isinstance(filts, set):
         filts = filtsetup(filts)
     elif isinstance(filts[0], str) or (isinstance(filts[0], list) and isinstance(filts[0][0], str)):

@@ -120,8 +120,7 @@ class Model:
     # banks/tables are pure functions of (filters, n_nodes[, z, cutoff]) and
     # are shared process-wide via ops.filterbank's cache: population fits
     # create one model per transient, and rebuilding identical quadrature per
-    # instance dominated host time (profiled: 64 transients -> 12 s packing
-    # vs 0.02 s device compute)
+    # instance dominated host time
     def bank_for(self, filters):
         from ..ops.filterbank import bank_for
         return bank_for(filters, n_nodes=self.n_nodes)
@@ -132,16 +131,14 @@ class Model:
 
         Entries are host numpy arrays: closed over by jitted functions they
         embed as compile-time constants (one transfer at compile), and packers
-        stack them host-side — per-item device_puts dominate wall time on
-        remote devices."""
+        stack them host-side rather than paying one device_put per item."""
         bank = bank or self.bank_for(sorted(set(filters)))
         ids = bank.band_ids(filters)
         if self.use_band_table:
             # Table path: ``_bandflux`` evaluates the Clenshaw recurrence and
             # never reads the raw quadrature, so nodes/weights/k_ext would be
             # dead weight — at population scale they dominated the payload
-            # (3 x (n, 89) f64 per transient = 163 MB at S=512, ~60% of
-            # pack_population host time; tools/perf_population_probe_r5.py).
+            # (3 x (n, 89) f64 per transient = 163 MB at S=512).
             quad = {"band_ids": ids}
             quad["bb_coeffs"], quad["bb_s_a"], quad["bb_s_b"] = \
                 self.table_for(bank).gather(ids, device=False)
@@ -232,8 +229,8 @@ class Model:
 
     def _normalized_data(self, y, dy, sigma_type="relative"):
         """O(1) data normalization shared by the likelihood and the
-        goodness-of-fit diagnostic: the TPU backend emulates float64 with
-        float32 exponent range, so raw flux units (~1e-30 W/m^2/Hz) or
+        goodness-of-fit diagnostic: the hot path may run in float32
+        (core.config), so raw flux units (~1e-30 W/m^2/Hz) or
         luminosities (~1e13 W/Hz) must not appear squared or logged.
 
         Returns host-numpy ``(yscale, y/yscale, dy/yscale, sigma_units)``

@@ -12,6 +12,7 @@ reference API including its broadcasting conventions (models.py:1105-1200).
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from ..core.constants import c1, c2
@@ -50,8 +51,8 @@ def bandflux_pointwise(nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None
     Returns (..., N) band-averaged L_nu in W/Hz.
 
     The (..., N, K) Planck cube — the hot path — runs in
-    ``core.config.compute_dtype`` when set (float32 on TPU: full VPU rate,
-    ~1e-7 relative error); time/parameter arithmetic stays in ambient precision.
+    ``core.config.compute_dtype`` when set (float32 on accelerators, ~1e-7
+    relative error); time/parameter arithmetic stays in ambient precision.
     """
     from ..core import config
     out_dtype = jnp.result_type(T)
@@ -86,7 +87,8 @@ def bandflux_outer(nodes_emit, weights, T, R, cutoff_freq=np.inf, k_ext=None, eb
     if k_ext is not None:
         lnu = lnu * jnp.exp(k_ext[:, None, :] * jnp.asarray(ebv).reshape(1, -1, 1)
                             * (-0.4 * jnp.log(10.0)))
-    out = jnp.einsum("bsk,bk->bs", lnu, weights)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    out = jnp.einsum("bsk,bk->bs", lnu, weights, precision=jax.lax.Precision.HIGHEST)
     return out.reshape((nodes_emit.shape[0],) + sh)
 
 

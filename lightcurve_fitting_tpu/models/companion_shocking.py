@@ -2,7 +2,7 @@
 (Conley et al. 2008), as combined by Hosseinzadeh et al. (2017).
 Reference: models.py:660-1045.
 
-TPU design: the per-filter SiFTO cubic splines (reference models.py:717 uses
+Accelerator design: the per-filter SiFTO cubic splines (reference models.py:717 uses
 scipy CubicSpline) are precomputed host-side at model construction into
 piecewise-polynomial coefficient arrays; device evaluation is a per-point
 coefficient gather + polynomial (no Python loop over filters), with the

@@ -77,8 +77,8 @@ class BaseShockCooling(Model):
             kappa = self.kappa
         t = hot_phase(jnp.reshape(jnp.asarray(t_in, float), (-1, 1)), t_exp)
         t, v_s, M_env, f_rho_M, R, kappa = hot(t, v_s, M_env, f_rho_M, R, kappa)
-        # luminosity carried in units of 1e42 erg/s (TPU float64 emulation has
-        # float32 range; see core.constants)
+        # luminosity carried in units of 1e42 erg/s (float32 range safety;
+        # see core.constants)
         L_RW_42 = (self.L_0 / 1e42) * power(t ** 2 * v_s / (f_rho_M * kappa),
                                             -self.epsilon_2) * v_s ** 2 * R / kappa
         t_tr = 19.5 * (kappa * M_env / v_s) ** 0.5
@@ -204,7 +204,7 @@ class ShockCooling3(BaseShockCooling):
                                                 kappa)
         lum = bandflux_pointwise(quad["nodes"], quad["weights"], T_K, R_bb,
                                  k_ext=quad["k_ext"], ebv=ebv)
-        # c4 ~ 8e-47 underflows the TPU's float32-range f64 emulation; split it
+        # c4 ~ 8e-47 underflows float32; split it
         return ((lum * 1e-30) * c4_30) / dist ** 2.0
 
     def t_min(self, p, kappa=None):

@@ -8,10 +8,10 @@ For a blackbody, the band-averaged spectral luminosity factorizes exactly:
 so the K-node quadrature only ever needs to be evaluated on a 1-D temperature
 grid — once, at fit setup, in float64 on the host, using the *exact* native-grid
 weights. On device, each (walker, point) evaluation is then a short Clenshaw
-recurrence on static per-point coefficients plus one exp — pure VPU work, no
-gathers (piecewise-table lookups need per-element dynamic gathers, measured
-20x slower than the raw quadrature on TPU; a piecewise-cubic variant was
-implemented, benchmarked, and removed — docs/design.md "Pallas decision").
+recurrence on static per-point coefficients plus one exp — elementwise work,
+no gathers (a piecewise-cubic table needs per-element dynamic gathers; that
+variant was implemented on an earlier accelerator target, found slower, and
+removed — docs/design.md "Pallas decision"; it is untested on a GPU).
 
 Static per fit: redshift and cutoff frequency are baked into the table.
 Extinction is NOT: the table carries no E(B-V) input, so any model with
@@ -161,8 +161,7 @@ def chebyshev_bandflux(coef_pt, T, R, s_a, s_b):
     out_dtype = jnp.result_type(T)
     dt = config.get_compute_dtype()
     if dt is not None:
-        # all Clenshaw quantities are O(1)-O(1e2): float32-safe, and the TPU's
-        # emulated float64 would be ~10x slower per op
+        # all Clenshaw quantities are O(1)-O(1e2): float32-safe
         coef_pt = coef_pt.astype(dt)
         T = T.astype(dt)
         R = R.astype(dt)

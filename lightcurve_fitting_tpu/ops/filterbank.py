@@ -2,7 +2,7 @@
 
 The reference integrates every band on its native transmission grid inside a
 Python loop over filters (filters.py:288-310, models.py:1161-1164) — ragged,
-object-based, and host-bound. On TPU we instead resample every band's
+object-based, and host-bound. Here we instead resample every band's
 normalized transmission onto K uniform frequency nodes at bank-construction
 time, so the band average of any spectrum becomes a fixed-shape weighted
 reduction:
@@ -10,7 +10,7 @@ reduction:
     <L_nu>_b = sum_k W[b, k] * L_nu(nu[b, k])      with  sum_k W[b, k] ~= 1
 
 Batched over walkers/epochs/times this is a single fused elementwise+reduction
-(or an MXU matmul when the spectrum factorizes), with no ragged shapes and no
+(or a matrix product when the spectrum factorizes), with no ragged shapes and no
 recompilation across bands.
 """
 
@@ -144,8 +144,8 @@ class FilterBank:
 # ----------------------------------------------------------- process-wide cache
 # Banks and Chebyshev band tables are pure functions of
 # (filters, n_nodes[, z, cutoff_freq]) and are expensive to build relative to
-# the device compute they feed (profiled: 64 population transients rebuilding
-# identical quadrature spent 12 s packing vs 0.02 s device compute). ONE
+# the device compute they feed (a population fit rebuilding identical
+# quadrature per transient spent far longer packing than computing). ONE
 # process-wide cache serves every consumer — Model.bank_for/table_for,
 # blackbody_to_filters, and the per-epoch SED posteriors in bolometric.py —
 # so the same filter set never builds its quadrature or table twice.

@@ -15,8 +15,8 @@ def hot(*xs):
     """Cast values into the configured hot-path compute dtype (no-op when
     ``core.config.compute_dtype`` is None). Used by model kernels right after
     the epoch subtraction ``t - t_exp``: absolute MJDs need float64, but the
-    elapsed times and physical parameters are O(1)-O(100) and run at full VPU
-    rate in float32 (the TPU's emulated float64 is ~10x slower per op)."""
+    elapsed times and physical parameters are O(1)-O(100) and run at the
+    float32 rate."""
     from ..core import config
     dt = config.get_compute_dtype()
     if dt is None:
@@ -30,9 +30,8 @@ def hot_phase(t, t_exp):
     a float64 (walkers, points) array.
 
     Absolute MJDs (~5.7e4) need float64 for a subtraction whose result is
-    resolved to ~1e-4 d — but profiling showed the f64 outer difference was
-    ~18% of the whole MCMC step at large walker counts (emulated f64 writes
-    a 78 MB intermediate at 131k walkers). Centering both operands on a
+    resolved to ~1e-4 d — but the f64 outer difference writes a 78 MB
+    intermediate at 131k walkers. Centering both operands on a
     per-dataset epoch ``t_ref = floor(min t)`` first makes them O(10), where
     float32's 6e-8 relative error is ~0.1 s absolute — two orders below the
     tightest posterior width seen (15 s on the flagship t_0) — so the wide

@@ -6,10 +6,10 @@ bolometric.py:167). This framework's cross-host design is deliberate:
 
 * **Transients shard across processes.** Population fitting is embarrassingly
   parallel over transients, so each host packs and fits only its own
-  contiguous shard — zero DCN collectives in the hot loop (SURVEY.md §5:
+  contiguous shard — zero cross-host collectives in the hot loop (SURVEY.md §5:
   "each host fits distinct transients — no cross-host comms needed except
   gather of summary stats").
-* **Walkers shard across the local chips** over ICI (``parallel/mesh.py``),
+* **Walkers shard across the local devices** over the device interconnect (``parallel/mesh.py``),
   inside one process.
 * ``jax.distributed`` supplies coordination only: process ids, global device
   visibility, and a barrier at shutdown.
@@ -98,9 +98,9 @@ def fit_population_local_shard(models, lcs, priors, p_lo, p_up, process_id=None,
     """Fit only this process's shard of a transient population.
 
     Packing is process-local: each host resamples filter banks and pads
-    photometry for *its* transients only (the packing cost measured in round 1
-    was 500x the device time — sharding it matters as much as sharding the
-    math). Returns ``(indices, (flatchains, acceptance))`` where ``indices``
+    photometry for *its* transients only (host packing can cost more than
+    the device math — sharding it matters as much as sharding the math).
+    Returns ``(indices, (flatchains, acceptance))`` where ``indices``
     maps shard rows back into the global transient list. With one process this
     is exactly :func:`~lightcurve_fitting_tpu.parallel.population.fit_population`.
     """

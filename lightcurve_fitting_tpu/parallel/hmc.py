@@ -125,7 +125,7 @@ class WhitenedPosterior:
         return self
 
     def to_u(self, w):
-        return self._muj + self._Lj @ w
+        return self._muj + jnp.matmul(self._Lj, w, precision=jax.lax.Precision.HIGHEST)
 
     def to_w(self, u):
         """host-side inverse for initializing chains"""

@@ -4,7 +4,7 @@ The Goodman-Weare stretch move is data-parallel over walkers within each
 half-ensemble; the only cross-walker dependence is sampling a partner from the
 *complementary* half. We therefore shard the walker axis of the (2, half, ndim)
 state across a 1-D device mesh and ``all_gather`` the complementary half (a few
-KB) over ICI once per half-step — the likelihood, by far the dominant cost,
+KB) over the device interconnect once per half-step — the likelihood, by far the dominant cost,
 stays fully local (SURVEY.md §5: the walker axis is this workload's analog of
 sequence parallelism).
 
@@ -84,7 +84,7 @@ class ShardedEnsembleSampler(EnsembleSampler):
                                                self.mesh, axis_name, a)
         self._run_jit = {}
         self._state_sharding = NamedSharding(self.mesh, P(None, axis_name, None))
-        # the mesh may span processes (multi-controller over DCN): every
+        # the mesh may span processes (multi-controller across hosts): every
         # process runs the same program; host bookkeeping must gather
         # non-addressable global arrays through the coordination service
         self._multiprocess = len({d.process_index

@@ -8,7 +8,7 @@ steps. NUTS adapts the trajectory per transition — the standard remedy
 reference package cannot offer any gradient-based sampler at all (numpy
 models, models.py throughout).
 
-TPU-first design decisions:
+Accelerator-first design decisions:
 
 * **Full-trajectory buffering.** Astronomy-model posteriors here are tiny
   (ndim ~ 4-10), so a transition keeps *every* visited state in a fixed
@@ -213,7 +213,7 @@ class NUTSSampler:
     ``mesh`` shards the chain axis over a 1-D :class:`jax.sharding.Mesh` —
     chains are independent given the adaptation state, so the per-step
     communication is only the warmup's cross-chain reductions (mean accept
-    stat + Welford variance), which XLA lowers to small ICI all-reduces from
+    stat + Welford variance), which XLA lowers to small all-reduces from
     the sharding annotations; production sampling is collective-free."""
 
     def __init__(self, nchains, ndim, log_prob_fn, max_depth=8, target_accept=0.8,

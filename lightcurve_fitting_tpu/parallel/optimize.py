@@ -1,8 +1,8 @@
 """Batched gradient optimization: many independent starts in one jitted scan.
 
-The TPU execution model makes multi-start optimization essentially free: S
+Batched device execution makes multi-start optimization nearly free: S
 starting points share one compiled Adam update (the per-start state is just a
-batch axis), so a 64-start mode search costs the same wall-clock as one start.
+batch axis), so a 64-start mode search costs about the wall-clock of one start.
 This backs :func:`~lightcurve_fitting_tpu.fitting.lightcurve_map` — instant
 MAP point estimates with Laplace uncertainties, a capability the reference has
 only for the blackbody SED (`scipy.optimize.curve_fit`, reference

@@ -9,7 +9,7 @@ thinned posterior draws. If the whole pipeline is calibrated, every rank
 is uniform on {0..L} — any bias, over/under-dispersion, or sampler bug
 shows up as a non-uniform rank histogram (Talts et al. 2018, fig. 1).
 
-TPU-native by construction: the n_sims fits run as ONE
+Batched by construction: the n_sims fits run as ONE
 :func:`parallel.population.fit_population` device call (shared compiled
 kernel, transients sharded over the mesh), so hundreds of synthetic fits
 cost seconds — SBC as a routine check rather than a cluster job.

@@ -13,7 +13,6 @@ import re
 import shutil
 
 import numpy as np
-import matplotlib.pyplot as plt
 
 from .lightcurve import LC
 from .utils import fits as ufits
@@ -363,6 +362,7 @@ def calibrate_spectra(spectra, lc, filters=None, order=0, subtract_percentile=No
     lc.sort("MJD")
     transmissions = {filt: _sorted_transmission(filt) for filt in set(lc["filter"])}
 
+    import matplotlib.pyplot as plt
     if show:
         plt.ion()
     fig = plt.figure(figsize=(8.0, 6.0))

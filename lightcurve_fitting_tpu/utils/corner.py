@@ -8,7 +8,6 @@ hidden (but present) axes above it.
 """
 
 import numpy as np
-import matplotlib.pyplot as plt
 from scipy.ndimage import gaussian_filter
 
 __all__ = ["corner"]
@@ -47,6 +46,7 @@ def corner(xs, labels=None, label_kwargs=None, bins=20, color="k",
         trdim = 0.2 * factor
         plotdim = factor * ndim + factor * (ndim - 1.0) * 0.05
         dim = lbdim + plotdim + trdim
+        import matplotlib.pyplot as plt
         fig, axes = plt.subplots(ndim, ndim, figsize=(dim, dim))
         lb = lbdim / dim
         tr = (lbdim + plotdim) / dim

@@ -1,6 +1,6 @@
 // Native host-side kernels for lightcurve_fitting_tpu.
 //
-// The TPU handles all model/likelihood math; these are the host data-path
+// The accelerator handles all model/likelihood math; these are the host data-path
 // hot spots, implemented in C++ and exposed through ctypes (see native.py):
 //
 //   * lcf_binflux: greedy inverse-variance time binning. The Python reference

@@ -668,3 +668,27 @@ def test_spectrum_corner_smoke(tmp_path):
     assert os.path.exists(out)
     import matplotlib.pyplot as plt
     plt.close(fig)
+
+
+@pytest.mark.parametrize("state_dtype", ["auto", np.float32, np.float64],
+                         ids=["auto", "float32", "float64"])
+def test_calculate_bolometric_forwards_state_dtype(tmp_path, monkeypatch, state_dtype):
+    """Batch mode hands ``state_dtype`` to the batched sampler, which
+    resolves it: "auto" is float64 walker state on the CPU."""
+    from lightcurve_fitting_tpu.parallel import batched
+    seen = []
+    real = batched.batched_blackbody_mcmc
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["state_dtype"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(batched, "batched_blackbody_mcmc", spy)
+    lc = load_lc().where(MJD_min=57468.0, MJD_max=57471.0)
+    t = bol.calculate_bolometric(lc, outpath=str(tmp_path), nwalkers=4,
+                                 burnin_steps=10, steps=10, seed=0,
+                                 batch_mode=True, mesh=False, save_corners=False,
+                                 state_dtype=state_dtype)
+    assert seen == [state_dtype]
+    assert batched._epoch_state_is_f32(state_dtype) == (state_dtype is np.float32)
+    assert len(t) > 0 and np.isfinite(np.asarray(t["temp_mcmc"], float)).all()

@@ -1,6 +1,6 @@
 """Multi-host scaffolding: jax.distributed wiring + process-local transient
 sharding, exercised with two real CPU processes over a localhost coordinator
-(SURVEY.md §5: cross-host population fitting over DCN with zero inner
+(SURVEY.md §5: cross-host population fitting across hosts with zero inner
 collectives)."""
 
 import os
@@ -122,7 +122,7 @@ from lightcurve_fitting_tpu.fitting import lightcurve_mcmc
 
 distributed.initialize(coordinator_address="127.0.0.1:" + port,
                        num_processes=nproc, process_id=proc_id)
-assert jax.device_count() == 2 * nproc            # global devices across DCN
+assert jax.device_count() == 2 * nproc            # global devices across processes
 assert jax.local_device_count() == 2
 
 # synthetic flagship-model light curve (identical on both processes)
@@ -139,7 +139,7 @@ priors = [UniformPrior(1.0, 50.0), UniformPrior(0.1, 20.0), UniformPrior(5.0, 10
           UniformPrior(-1.0, 0.9)]
 
 # ONE GLOBAL MESH over all 4 devices (2 per process): walkers shard across
-# both processes; the stretch move's complementary-half all_gather rides DCN
+# both processes; the stretch move's complementary-half all_gather crosses processes
 mesh = walker_mesh()   # all global devices
 assert len({{d.process_index for d in mesh.devices.flat}}) == nproc
 sampler = lightcurve_mcmc(lc, model, priors=priors,
@@ -157,7 +157,7 @@ print("proc", proc_id, "medians", med, flush=True)
 
 
 def test_two_process_global_mesh_walker_sharding(tmp_path):
-    """The SURVEY §5 DCN communication row demonstrated live: two
+    """The SURVEY §5 cross-host communication row demonstrated live: two
     jax.distributed processes form ONE global mesh and
     ``lightcurve_mcmc(mesh=global)`` shards the walker axis across both —
     the per-half-step all_gather of the complementary half crosses the
@@ -221,7 +221,7 @@ priors = [UniformPrior(1.0, 50.0), UniformPrior(0.1, 20.0),
           UniformPrior(5.0, 100.0), UniformPrior(-1.0, 0.9)]
 
 # the tempered ladder's walker axis sharded over ONE global mesh spanning
-# both processes (evidence + PT posteriors over DCN)
+# both processes (evidence + PT posteriors across processes)
 mesh = walker_mesh()
 pt = lightcurve_ptmcmc(lc, model, priors,
                        p_lo=[5.0, 0.5, 20.0, -0.5], p_up=[25.0, 5.0, 60.0, 0.5],

@@ -220,8 +220,8 @@ def test_ladder_survives_nonfinite_start_walker():
 
 def test_f32_rescaled_ladder_state_preserves_evidence():
     """state_dtype=np.float32 on the evidence/PT drivers runs the ladder's
-    walker state over the affine-rescaled init window in f32 (the TPU
-    production mode). The evidence is invariant — the affine Jacobian is a
+    walker state over the affine-rescaled init window in f32 (the
+    accelerator production mode). The evidence is invariant — the affine Jacobian is a
     constant that cancels in the stepping-stone ratio — and the PT cold
     chain maps back to correct absolute parameters even for a narrow
     posterior far from zero."""

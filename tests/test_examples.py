@@ -24,7 +24,7 @@ EXAMPLES = os.path.join(REPO, "examples")
 
 def _env():
     env = dict(os.environ)
-    env.update(LCF_CPU="1", LCF_EXAMPLE_FAST="1", JAX_PLATFORMS="cpu",
+    env.update(LCF_EXAMPLE_FAST="1", JAX_PLATFORMS="cpu",
                MPLBACKEND="Agg", PYTHONPATH=REPO)
     return env
 

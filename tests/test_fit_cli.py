@@ -120,7 +120,7 @@ def test_cli_population(tmp_path, synth_csv):
 def test_cli_population_summaries(tmp_path, synth_csv):
     """driver_kwargs summaries/return_chains pass through (regression: the
     CLI unpacked fit_population as a 2-tuple, so the documented
-    tunnel-resilient fast path crashed after the fit finished)."""
+    summaries-only fast path crashed after the fit finished)."""
     cfg = {"data": [synth_csv], "model": "ShockCooling2",
            "priors": [["Uniform", 1, 50], ["Uniform", 0.1, 20],
                       ["Uniform", 5, 100]],

@@ -129,7 +129,7 @@ def test_population_f32_phase_with_mjd_scale_ragged_times():
     floor(min t) per transient, and pack_population must pad times with the
     last REAL time (zero padding would drag the center to 0 and quantize
     5.7e4-day phases to f32 ulp ~11 minutes). Forces compute dtype f32 on CPU
-    to exercise the TPU code path."""
+    to exercise the accelerator code path."""
     import jax.numpy as jnp
     from lightcurve_fitting_tpu.core import config
 
@@ -313,8 +313,7 @@ def test_fit_population_device_summaries(population):
 
 def test_fit_population_f32_state_summaries_use_bisection_path(population):
     """With the accelerator-default float32 rescaled state, the device
-    summaries run ops/quantile.py's sort-free counting bisection (round-5:
-    the f64-upcast sort was ~35% of survey-scale marginal cost). They must
+    summaries are float32 percentiles of the q-space chains. They must
     still match host float64 percentiles of the returned absolute chains —
     the affine q->absolute map commutes with linear percentile
     interpolation."""
@@ -478,10 +477,9 @@ def test_population_compare_elpd():
 
 
 def test_pack_population_shipment_cache(population):
-    """Repeat packs of identical data reuse the device buffers (the
-    device_put of the stacked payload dominates pack cost on remote
-    devices); any content change re-ships; callers can add keys to the
-    returned dicts without corrupting the cache."""
+    """Repeat packs of identical data reuse the device buffers (no second
+    device_put of the stacked payload); any content change re-ships; callers
+    can add keys to the returned dicts without corrupting the cache."""
     from lightcurve_fitting_tpu.parallel.population import pack_population
 
     lcs, models, _ = population

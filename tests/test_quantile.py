@@ -5,6 +5,9 @@ The counting-bisection path must reproduce np.percentile of the same data
 population summaries it powers are compared against host percentiles of
 the returned chains (test_population.py)."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -98,3 +101,36 @@ def test_population_summary_shape_convention():
     assert out.shape == (3, 6, 4)
     want = np.percentile(a.astype(np.float64), Q, axis=1)
     np.testing.assert_allclose(out, want, atol=5e-13)
+
+
+def test_compiles_once_per_shape():
+    """Repeat calls at one (shape, q, axis) reuse one executable, whatever
+    form q and axis take: called un-jitted, the 32-pass loop was compiled
+    again on every call, which cost more than the search itself."""
+    from lightcurve_fitting_tpu.ops import quantile
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((3, 50, 2)).astype(np.float32)
+    percentile_f32(jnp.asarray(a), Q, axis=1)
+    n = quantile._bisect._cache_size()
+    for q, axis in ((Q, 1), (np.asarray(Q), -2), (tuple(Q), 1)):
+        b = rng.standard_normal(a.shape).astype(np.float32)
+        _check(b, q=q, axis=axis)
+    assert quantile._bisect._cache_size() == n
+
+
+def test_population_summary_ab_probe_at_tiny_size(capsys):
+    """tools/population_summary_ab.py times fit_population with each
+    percentile path; at a tiny size on the CPU every arm runs and the
+    bisection and sort summaries agree to float32 rounding."""
+    import json
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    import population_summary_ab
+    rc = population_summary_ab.main(["--S", "2", "--nwalkers", "8", "--nsteps", "6",
+                                     "--nsteps-burnin", "4", "--rounds", "1",
+                                     "--reps", "1"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out["end_to_end"]) == {"bisection", "eager", "sort", "none"}
+    assert all(v["n"] == 2 for v in out["end_to_end"].values())
+    assert set(out["alone"]) == {"bisection", "eager", "sort"}
+    assert out["max_summary_diff"] < 1e-4

@@ -139,7 +139,7 @@ def build():
         "*Generated by `tools/build_api_docs.py` — do not edit by hand;*",
         "*regenerate after API changes.*",
         "",
-        "The TPU-native counterpart of `lightcurve_fitting`'s Sphinx API page",
+        "The JAX counterpart of `lightcurve_fitting`'s Sphinx API page",
         "(reference docs/source/api.rst). See `docs/usage.md` for the guided",
         "workflow and `docs/design.md` for the architecture.",
         "",
